@@ -1,6 +1,6 @@
-"""alpha_yolo_quant_tpu — TPU-native post-training-quantization framework for YOLOv8.
+"""alpha_yolo_quant_tpu — JAX post-training-quantization framework for YOLOv8.
 
-A from-scratch JAX/XLA/Pallas re-design of the staged PTQ pipeline in
+A from-scratch JAX/XLA re-design of the staged PTQ pipeline in
 Alpha-Chip/Alpha-Yolo-Quant (reference mounted read-only at /root/reference):
 BatchNorm fusion, max-abs activation calibration, int-K (4/6/8-bit) weight
 quantization with per-output-channel scales, hardware rescale/shift
@@ -11,12 +11,12 @@ instead of the reference's six hand-copied model definitions
 
 Layering (bottom-up):
   ops/        integer-exact primitives (int32 emulated widening math, exact
-              MXU-friendly integer convolution, LUT construction)
+              integer convolution, LUT construction)
   models/     the YOLOv8 graph IR + float forward + checkpoint loading/BN fusion
   quantize/   calibration (taps), statistics reduction, the scale plan, and the
               graph->integer transform (host-side, numpy float64/int64,
               bit-exact with the reference contract)
-  runtime/    jitted integer inference: pure-jnp interpreter and Pallas engine
+  runtime/    jitted integer inference (pure-jnp interpreter) + int64 oracle
   postprocess/ anchors, DFL decode, float NMS and integer q_NMS
   eval/       COCO mAP harness
   export/     Verilog text + gzip pickle artifact writers (byte-compatible)

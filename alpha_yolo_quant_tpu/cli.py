@@ -15,7 +15,7 @@ subcommand with flags, all writing into one artifact directory:
   demo       golden-image smoke test with a detection plot
   serve      batch-coalescing inference service over an image list
   accept     one-command accuracy acceptance (all gates + K sweep)
-  bench      single-chip throughput
+  bench      device throughput (one device or --dp)
 
 Run as: python -m alpha_yolo_quant_tpu.cli <command> [flags]
 """
@@ -167,8 +167,8 @@ def cmd_quantize(args):
 def _dp_step(fn, dp, batch):
     """Wrap a per-batch pipeline as a batch-data-parallel shard_map step
     over the first ``dp`` local devices (parallel.mesh.data_parallel_step
-    — params replicate, the batch axis shards over ICI; bitwise equal to
-    the unsharded jit, tests/test_parallel.py). ``batch`` is the global
+    — params replicate, the batch axis shards over the devices; bitwise
+    equal to the unsharded jit, tests/test_parallel.py). ``batch`` is the global
     batch every call will carry; shard_map needs it divisible by dp."""
     import jax
 
@@ -247,18 +247,10 @@ def cmd_eval_int8(args):
     graph, params = _graph_params(args, cfg)
     max_a = _load_max_a(args)
     model = build_quantized_model(graph, params, max_a, cfg)
-    # serving batch policy: mid-range yolov8n batches run the conv stack
-    # at the lane-optimal width (B=48/64 natively pick pathological
-    # fusions — scripts/r5_pads.log; bit-exact, tested). yolov8s has no
-    # mid-batch pathology and padding hurts (scripts/r5_spad.log).
-    # Under --dp each device sees batch/dp rows — the pad decision
-    # follows the PER-DEVICE batch the conv stack actually runs at.
-    per_dev = args.batch_size // args.dp if args.dp else args.batch_size
-    pad = 128 if (cfg.model == "yolov8n" and 32 < per_dev < 128) else None
     fn, _ = build_int_pipeline(
         model, dfl_w_float=params["dfl"]["w"],
         nms_params=eval_nms_params(model, args.conf_thres),
-        engine=args.engine, pad_batch_to=pad)
+        engine=args.engine)
     step = (_dp_step(fn, args.dp, args.batch_size) if args.dp
             else jax.jit(fn))
     return _eval_common(args, step,
@@ -370,7 +362,7 @@ def cmd_serve(args):
     on a host thread pool, submit each image to serving.BatchCoalescer
     (requests ride ONE compiled max-batch step; timeout flush), emit one
     JSON line per image: {"path", "n", "detections": [[x1,y1,x2,y2,
-    conf,cls], ...]}. The TPU-native replacement for the reference's
+    conf,cls], ...]}. The replacement for the reference's
     one-image-per-script-run serving story (stage_8_torch.py runs a
     fixed val loop; there is no request path at all)."""
     import concurrent.futures as cf
@@ -558,10 +550,12 @@ def cmd_bench(args):
              else 128 * max(args.dp, 1))
     bench.main(model=args.model, k=args.k, image_size=args.image_size,
                engine=args.engine, batch=batch, iters=args.iters,
-               check=args.check, coalesce=args.coalesce, dp=args.dp)
+               coalesce=args.coalesce, dp=args.dp)
 
 
 def build_parser():
+    from alpha_yolo_quant_tpu.runtime.interpreter import ENGINES
+
     p = argparse.ArgumentParser(prog="alpha_yolo_quant_tpu",
                                 description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -620,9 +614,7 @@ def build_parser():
         if name == "eval-int8":
             sp.add_argument("--max-a", required=True)
             sp.add_argument("--full-quant", action="store_true")
-            sp.add_argument("--engine", default="auto",
-                            choices=["xla", "s8", "s8_nhwc", "nhwc",
-                                     "pallas", "fused", "auto", "packed"])
+            sp.add_argument("--engine", default="auto", choices=ENGINES)
         sp.set_defaults(fn=fn)
 
     sp = sub.add_parser("memsim", help="SRAM allocation simulation")
@@ -658,7 +650,7 @@ def build_parser():
                          "artifact tree (the stage-8 production load) "
                          "instead of --weights/--max-a")
     sp.add_argument("--full-quant", action="store_true")
-    sp.add_argument("--engine", default="auto")
+    sp.add_argument("--engine", default="auto", choices=ENGINES)
     sp.add_argument("--input-list", required=True,
                     help="file of image paths, one per line ('-' = stdin)")
     sp.add_argument("--output", help="JSONL out (default stdout)")
@@ -688,7 +680,7 @@ def build_parser():
     sp.add_argument("--prefetch", action="store_true")
     sp.add_argument("--mode", default="max",
                     help="calibration reduction (stage_5 lever)")
-    sp.add_argument("--engine", default="auto")
+    sp.add_argument("--engine", default="auto", choices=ENGINES)
     sp.add_argument("--k-sweep", default="",
                     help="extra bit widths, e.g. '6,4' (each gets its "
                          "own artifact dir + gates)")
@@ -702,17 +694,13 @@ def build_parser():
 
     sp = sub.add_parser("bench", help="chip throughput (single or --dp)")
     common(sp, weights=False)
-    sp.add_argument("--engine", default="auto",
-                    choices=["xla", "s8", "s8_nhwc", "nhwc", "auto",
-                             "pallas", "fused", "packed"])
+    sp.add_argument("--engine", default="auto", choices=ENGINES)
     sp.add_argument("--batch", type=int, default=None,
-                    help="GLOBAL batch (default 128 per chip)")
+                    help="GLOBAL batch (default 128 per device)")
     sp.add_argument("--iters", type=int, default=10)
     sp.add_argument("--dp", type=int, default=0,
-                    help="slope-timed envelope under the shard_map "
+                    help="slope-timed run under the shard_map "
                          "data-parallel step over N local devices")
-    sp.add_argument("--check", action="store_true",
-                    help="gate against the recorded envelope (bench.py)")
     sp.add_argument("--coalesce", type=int, default=0,
                     help="N coalesced requests of --batch images each")
     sp.set_defaults(fn=cmd_bench)
@@ -721,6 +709,11 @@ def build_parser():
 
 
 def main(argv=None):
+    from alpha_yolo_quant_tpu.utils.compile_cache import (
+        configure_compile_cache,
+    )
+
+    configure_compile_cache()
     args = build_parser().parse_args(argv)
     ret = args.fn(args)
     # subcommands may return rich objects (cmd_eval_* return EvalResult

@@ -1,6 +1,6 @@
 """Global configuration for the quantization pipeline.
 
-TPU-native replacement for the reference's constants module
+JAX-native replacement for the reference's constants module
 (reference: quantisation/stage_0.py:1-34). Instead of editing a module, the
 pipeline is parameterized by a frozen dataclass passed explicitly.
 """
@@ -90,7 +90,7 @@ class QuantConfig:
         if self.model not in _MODEL_SCALES:
             raise ValueError(f"unknown model {self.model!r}")
         if not 2 <= self.k <= 8:
-            # The device runtimes carry K-bit activations in int8 (s8 MXU
+            # The device runtimes carry K-bit activations in int8 (s8
             # convs, int8 edge tensors) and the hardware contract is K<=8
             # weights/activations (reference stage_0.py:7, K=8 default;
             # utils/save_weights.py bit budgets). K>8 would silently wrap.

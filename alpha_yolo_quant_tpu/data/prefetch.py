@@ -1,7 +1,7 @@
 """Host-side async batch prefetch.
 
 The reference feeds the model image-by-image from the dataloader thread
-(num_workers=0 everywhere, reference stage_3.py:30); on TPU the host must
+(num_workers=0 everywhere, reference stage_3.py:30); here the host must
 decode/resize and stage the NEXT batch while the device computes the
 current one, or the chip idles on input. A small thread pool decodes
 images and a staging thread device_puts ahead of consumption.
@@ -52,8 +52,12 @@ def prefetch_batches(ds: CocoValDataset, batch_size: int, size: int = 640,
 
     def producer():
         if processes:
-            # spawn, not fork: forking a process that already runs JAX/TPU
-            # runtime threads can deadlock in the child
+            # spawn, not fork: forking a process that already runs JAX
+            # runtime threads can deadlock in the child. The workers run
+            # _decode_u8_hwc only and this module imports no JAX at top
+            # level, so a worker never initializes a backend: the parent
+            # stays the one process that holds the GPU (a JAX backend
+            # reserves most of the card's memory when it starts)
             import multiprocessing as mp
 
             pool = ProcessPoolExecutor(max_workers=decode_workers,

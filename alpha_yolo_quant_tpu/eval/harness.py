@@ -1,8 +1,8 @@
-"""Batched COCO-val evaluation harness (the stage-3/4/8 loops, TPU-first).
+"""Batched COCO-val evaluation harness (the stage-3/4/8 loops).
 
 One jitted step runs forward + decode + NMS for a whole batch; detections
 come back as fixed-shape (B, max_det, 6) arrays and are turned into metric
-rows on host. With a device mesh the batch axis shards over ICI
+rows on host. With a device mesh the batch axis shards over the devices
 (parallel.mesh) — the reference loops images one at a time on host
 (stage_4.py:975-1011).
 """

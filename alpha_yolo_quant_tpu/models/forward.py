@@ -4,7 +4,7 @@ Functionally equivalent to the reference's torch forward
 (stage_2.py:478-679 / stage_4.py:475-945) but expressed once over the IR
 and fully jittable. Optionally records the calibration taps (per-conv
 pre-activation tensors) in the same pass — the stage-4 analog runs batched
-on TPU instead of image-at-a-time on CPU.
+on the accelerator instead of image-at-a-time on CPU.
 """
 
 from __future__ import annotations

@@ -66,7 +66,8 @@ def decode_float(outputs: Dict[str, jnp.ndarray], dfl_w) -> jnp.ndarray:
     bins = box.reshape(b, 4, REG_MAX, n)
     probs = jax.nn.softmax(bins, axis=2)
     w = dfl_w.reshape(REG_MAX)
-    dfl = jnp.einsum("bcrn,r->bcn", probs, w)
+    dfl = jnp.einsum("bcrn,r->bcn", probs, w,
+                     precision=jax.lax.Precision.HIGHEST)   # no TF32
     dbox = dist2bbox(dfl, anchors[None]) * strides
 
     cls = jnp.concatenate([t.reshape(b, NUM_CLASSES, -1) for t in clss], 2)

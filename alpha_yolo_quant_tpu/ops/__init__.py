@@ -1,1 +1,1 @@
-"""Integer-exact compute primitives for the TPU quantized runtime."""
+"""Integer-exact compute primitives for the quantized runtime."""

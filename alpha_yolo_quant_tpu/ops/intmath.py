@@ -1,12 +1,12 @@
 """Exact 64-bit fixed-point arithmetic emulated with int32 vector ops.
 
-TPUs have no fast 64-bit integer path, but the reference requantization
+Device arrays stay int32 (JAX runs with 64-bit types off), but the reference requantization
 contract ("(rescale*x) // 2^(shift-1); then //2 + %2", reference
 quantisation/utils/rescale_coeff.py:49-51) needs ~47-bit intermediates:
 the SiLU path multiplies an int32 conv accumulator by an 8-bit sigmoid
 value and then by an 8-bit rescale coefficient.
 
-The key identity that keeps everything in int32 lanes on the VPU:
+The key identity that keeps everything in int32 elementwise ops:
 the combined multiplier ``m = sigma_q * rescale`` always fits in 15 bits
 (sigma_q <= 2^(K-1)-1 <= 127 for K<=8, rescale <= 2^8-1), so every
 requantization in the pipeline reduces to
@@ -15,7 +15,7 @@ requantization in the pipeline reduces to
 
 with one signed int32 x int15 widening multiply, represented as an
 (hi: int32, lo: uint32) pair. All functions here are jax-traceable and run
-identically on CPU and TPU; tests/test_intmath.py checks them exhaustively
+identically on CPU and GPU; tests/test_intmath.py checks them exhaustively
 against numpy int64.
 """
 
@@ -115,8 +115,7 @@ def requantize_i32_bigshift(x, m, shift, qmax):
 
 def requantize_i32_bigshift_folded(x, m, shift, qmax):
     """requantize_i32_bigshift with the round-half-up FOLDED into the
-    final shift — 2 fewer vector ops on the VPU (measured 0.520 ->
-    0.341 ms at 52.4M elements on v5e, scripts/r4_epi2.log).
+    final shift — 2 fewer elementwise ops.
 
     Identity (a = m*x, s = shift):
         rhu(floor(a / 2^(s-1))) = floor((a + 2^(s-1)) / 2^s)
@@ -157,8 +156,7 @@ def requantize_i32_direct(x, m, shift, qmax):
     Precondition (plan-checked per channel against the true accumulator
     bound): |m| * |x|_max + 2^(shift-1) < 2^31, so m*x and the biased sum
     are exact in int32. All 57 SiLU convs of yolov8n/s at K<=8 qualify
-    for their first (acc -> sigmoid domain) requant, where m = r1 < 2^8
-    (scripts/r4_epi2.log).
+    for their first (acc -> sigmoid domain) requant, where m = r1 < 2^8.
     """
     x32 = x.astype(jnp.int32)
     m_b = jnp.asarray(m, jnp.int32)

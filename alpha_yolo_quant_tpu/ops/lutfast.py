@@ -1,9 +1,9 @@
-"""Gather-free LUT application for TPU.
+"""Gather-free LUT application.
 
-Per-element table gathers (jnp.take) are catastrophically slow on TPU
-(~260ms for a layer-sized tensor on v5e — measured). But every LUT in this
-pipeline was CONSTRUCTED as ``quantize(f(dequantize(i)))``, so the VPU can
-recompute it arithmetically in a handful of elementwise ops.
+A per-element table gather (jnp.take) is a separate memory-bound pass that
+does not fuse into the requant epilogue. But every LUT in this pipeline
+was CONSTRUCTED as ``quantize(f(dequantize(i)))``, so it can be recomputed
+arithmetically in a handful of elementwise ops that fuse.
 
 Bit-exactness is preserved by *validation with corrections*: at build time
 the arithmetic recomputation is evaluated (jitted, on the actual runtime
@@ -24,10 +24,9 @@ import numpy as np
 
 from alpha_yolo_quant_tpu.quantize.luts import Lut
 
-# Corrections are fused selects — cheap even in the hundreds. The 16-bit
-# sigmoid table needs ~200 on TPU (Mosaic/XLA f32 transcendentals round
-# differently from numpy's float32 math); the gather fallback costs ~80ms
-# per batch and only exists as a safety net.
+# Corrections are fused selects — cheap even in the hundreds (a backend's
+# f32 transcendentals may round differently from numpy's float32 math at
+# table boundaries); the gather fallback only exists as a safety net.
 MAX_CORRECTIONS = 1024
 
 
@@ -51,9 +50,7 @@ def _sigmoid_core_tanh(lut: Lut):
     round(s*qmax) land in [0, qmax] by construction). Bit-exactness is
     NOT assumed — build_fast_lut validates every core exhaustively on
     the runtime backend and falls back to the reference core / gather
-    if corrections blow up. Measured 0.34 -> 0.26 ms at 52.4M elements
-    in the dieted epilogue (scripts/r4_sig.log; 0 corrections on both
-    CPU and TPU for the 8-bit serving table)."""
+    if corrections blow up."""
     qmax_t = np.float32(2 ** (lut.bits - 1) - 1)
     scale = np.float32((2 ** (lut.bits - 1) - 1) / lut.max_val)
     half_inv = np.float32(np.float32(0.5) / scale)

@@ -1,7 +1,7 @@
 """Shared NN compute helpers (float path + exact-integer conv).
 
-Layouts are NCHW / OIHW to match the artifact contract; XLA re-layouts
-internally for the MXU, and the Pallas engine uses its own blocked layout.
+Layouts are NCHW / OIHW to match the artifact contract; XLA picks the
+device layout around each conv.
 """
 
 from __future__ import annotations
@@ -13,11 +13,16 @@ from jax import lax
 
 
 def conv2d_f32(x, w, b=None, stride: int = 1, padding: int = 0):
-    """Float conv (cross-correlation), NCHW/OIHW."""
+    """Float conv (cross-correlation), NCHW/OIHW.
+
+    Precision is pinned to HIGHEST: on the GPU an unpinned f32 conv may
+    run in TF32 (11-bit significands), which would move the calibration
+    maxima, and with them every quantized artifact, off f32 semantics."""
     out = lax.conv_general_dilated(
         x, w, window_strides=(stride, stride),
         padding=[(padding, padding), (padding, padding)],
-        dimension_numbers=("NCHW", "OIHW", "NCHW"))
+        dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        precision=lax.Precision.HIGHEST)
     if b is not None:
         out = out + b.reshape(1, -1, 1, 1)
     return out
@@ -52,7 +57,6 @@ def upsample_nearest(x, factor: int = 2, nhwc: bool = False):
 
     One broadcast + reshape instead of two jnp.repeat calls: chained
     repeats materialize the half-upsampled intermediate through HBM
-    (the (B,C,2H,W)-sized broadcast was 0.57 ms/step on the r4 trace);
     a single 6-D broadcast writes each output byte once. Values are
     identical (pure replication).
 
@@ -77,23 +81,26 @@ def upsample_nearest(x, factor: int = 2, nhwc: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# Exact integer convolution on the MXU.
+# Exact integer convolution.
 #
-# TPU MXUs multiply bf16 exactly for small integers (|v| <= 256 fits the
-# 8-bit bf16 mantissa) and accumulate in f32, which is exact for integer
-# sums |acc| < 2^24. Quantized activations are split into high/low nibbles
-# (x = 16*(x>>4) + (x&15)); each part is <= 16 in magnitude, so each partial
-# conv accumulates to at most 127*16*taps < 2^24 for every layer of
-# YOLOv8n/s (asserted by the quantizer). Two bf16 convs + an int32 combine
-# give a bit-exact int32 accumulator with full MXU throughput.
+# bf16 represents integers |v| <= 256 exactly, products of two such values
+# are exact in f32, and an f32 accumulation of integers stays exact while
+# every partial sum is below 2^24. Quantized activations are split into
+# high/low nibbles (x = 16*(x>>4) + (x&15)); each part is <= 24 in
+# magnitude (16 for int8 inputs, 24 for the 381-wide concat edges), and the
+# quantizer asserts every partial accumulation sum|w|*|part| < 2^24. Two
+# bf16 convs + an int32 combine give a bit-exact int32 accumulator on the
+# tensor cores.
+# This holds for any algorithm that multiplies the operands directly and
+# accumulates in f32; a transform-based one (FFT, Winograd) would not be
+# exact, which is why the on-card golden check runs the whole model.
 # ---------------------------------------------------------------------------
 
 def conv2d_int_parts(x_int, w_int, stride: int = 1, padding: int = 0,
                      nhwc: bool = False):
     """The two bf16 nibble-split partial convs (f32 accumulators).
-    acc = 16*hi + lo; the combine is fused downstream (Pallas) or done by
-    conv2d_int_exact. With nhwc=True, x is NHWC and w is HWIO — the TPU's
-    native layout (no compiler-inserted transposes around each conv)."""
+    acc = 16*hi + lo; the combine is done by the caller
+    (conv2d_int_exact). With nhwc=True, x is NHWC and w is HWIO."""
     x32 = x_int.astype(jnp.int32)
     x_hi = jnp.right_shift(x32, 4)            # arithmetic: in [-2^5, 2^5)
     x_lo = jnp.bitwise_and(x32, 15)           # in [0, 15]
@@ -111,35 +118,70 @@ def conv2d_int_parts(x_int, w_int, stride: int = 1, padding: int = 0,
 
 def conv2d_s8_exact(x_int, w_i8, stride: int = 1, padding: int = 0,
                     parts: int = 1, nhwc: bool = False):
-    """Exact integer conv on the native s8 MXU path: int8 x int8 -> int32
-    accumulators (always exact — hardware integer accumulation).
+    """Exact integer conv for int8 weights and |x| <= 127*parts, with an
+    int32 accumulator. Used where the single-pass bf16 conv is not proven
+    exact, and by the s8 engines for every layer.
+
+    An s8 x s8 -> s32 lax.conv does not compile on the GPU (cuDNN's
+    integer convolutions produce s8 or f32 outputs only), so the layer's
+    geometry picks one of two exact routes, each the faster one for its
+    layer class on the H100 (PERF.md):
+
+    - 3x3 stride 1: the nibble-split bf16 pair (conv2d_int_exact), exact
+      for |x| < 2^9 under the quantizer's partial-sum bound; it needs no
+      parts split.
+    - 1x1 and stride 2: im2col by strided slices and ONE s8 x s8 -> s32
+      dot_general, which XLA hands to an integer GEMM.
 
     parts: ceil(amax/127) for the activation's integer magnitude bound.
     Chained-residual concat edges (c2f4.cat / c2f6.cat) reach 3*qmax = 381
     (transform.edge_amax_int), so the split is x = x1 + x2 + ... with
-    x_j = clip(residual, +-127) — each int8-exact — and one conv per part.
+    x_j = clip(residual, +-127) — each int8-exact; the parts are stacked
+    along the contraction (weights repeated), one GEMM for all of them.
     The caller derives `parts` from the quantizer's per-edge amax bound;
     anything wider than the declared bound would be a plan bug, asserted
     there (transform._check_accumulator_bounds).
     """
-    dn = ("NHWC", "HWIO", "NHWC") if nhwc else ("NCHW", "OIHW", "NCHW")
-
-    def c(p):
-        return lax.conv_general_dilated(
-            p, w_i8, window_strides=(stride, stride),
-            padding=[(padding, padding), (padding, padding)],
-            dimension_numbers=dn, preferred_element_type=jnp.int32)
-
-    if parts > 1:
-        x32 = x_int.astype(jnp.int32)
-        acc = None
-        for _ in range(parts):
-            xj = jnp.clip(x32, -127, 127)
-            x32 = x32 - xj
-            cj = c(xj.astype(jnp.int8))
-            acc = cj if acc is None else acc + cj
-        return acc
-    return c(x_int.astype(jnp.int8))
+    kh = w_i8.shape[0] if nhwc else w_i8.shape[2]
+    if kh == 3 and stride == 1:
+        return conv2d_int_exact(x_int, w_i8, stride, padding, nhwc=nhwc)
+    cax, iax = (3, 2) if nhwc else (1, 1)
+    h_ax, w_ax = (1, 2) if nhwc else (2, 3)
+    x32 = x_int.astype(jnp.int32)
+    xs = []
+    for _ in range(parts):
+        xj = jnp.clip(x32, -127, 127)
+        x32 = x32 - xj
+        xs.append(xj.astype(jnp.int8))
+    x = jnp.concatenate(xs, cax) if parts > 1 else xs[0]
+    w = jnp.concatenate([w_i8] * parts, iax) if parts > 1 else w_i8
+    w = w.astype(jnp.int8)
+    if padding:
+        pad = [(0, 0)] * 4
+        pad[h_ax] = pad[w_ax] = (padding, padding)
+        x = jnp.pad(x, pad)
+    ho = (x.shape[h_ax] - kh) // stride + 1
+    wo = (x.shape[w_ax] - kh) // stride + 1
+    taps = []
+    for dy in range(kh):
+        for dx in range(kh):
+            start, limit, step = [0] * 4, list(x.shape), [1] * 4
+            start[h_ax], start[w_ax] = dy, dx
+            limit[h_ax] = dy + (ho - 1) * stride + 1
+            limit[w_ax] = dx + (wo - 1) * stride + 1
+            step[h_ax] = step[w_ax] = stride
+            taps.append(lax.slice(x, start, limit, step))
+    # not lax.conv_general_dilated_patches: it is itself an identity conv
+    # in the input dtype, i.e. the s8 conv this route avoids
+    if nhwc:
+        patches = jnp.stack(taps, 3)                     # (B,H',W',T,C)
+        return jnp.einsum("bhwtc,tco->bhwo", patches,
+                          w.reshape(kh * kh, w.shape[2], w.shape[3]),
+                          preferred_element_type=jnp.int32)
+    patches = jnp.stack(taps, 2)                         # (B,C,T,H',W')
+    return jnp.einsum("bcthw,oct->bohw", patches,
+                      w.reshape(w.shape[0], w.shape[1], kh * kh),
+                      preferred_element_type=jnp.int32)
 
 
 def space_to_depth2(x):
@@ -157,9 +199,9 @@ def s2d_weights(w: "np.ndarray") -> "np.ndarray":
     coordinates those live in blocks {i-1, i} (a 2x2 block window with top/
     left zero-padding of one block). Tap dy maps to block offset
     by=(dy+2)//2 and in-block row ry=(dy+2)%2; dy=-2 taps are zero. The
-    transformed conv runs at 1/4 the spatial positions with 4x channels —
-    the MXU-utilization fix for the small-channel stem (C_in=3 on 128
-    lanes is ~2% efficient).
+    transformed conv runs at 1/4 the spatial positions with 4x channels,
+    a deeper contraction for the small-channel stem (C_in=3 contracts
+    over only 27 taps).
     """
     import numpy as np
 
@@ -172,16 +214,6 @@ def s2d_weights(w: "np.ndarray") -> "np.ndarray":
             bx, rx = (dx + 2) // 2, (dx + 2) % 2
             out[:, :, ry, rx, by, bx] = w[:, :, dy + 1, dx + 1]
     return out.reshape(o, c * 4, 2, 2)
-
-
-def conv2d_s8_s2d(x_int, w_s2d_i8):
-    """The s2d-transformed conv: s8 conv, kernel 2x2, stride 1, padding
-    (1,0) on each spatial dim. Input must be int8-range."""
-    y = space_to_depth2(x_int.astype(jnp.int8))
-    return lax.conv_general_dilated(
-        y, w_s2d_i8, window_strides=(1, 1), padding=[(1, 0), (1, 0)],
-        dimension_numbers=("NCHW", "OIHW", "NCHW"),
-        preferred_element_type=jnp.int32)
 
 
 def conv2d_bf16_exact(x_int, w_i8, stride: int = 1, padding: int = 0):
@@ -207,13 +239,9 @@ def conv2d_bf16_s2d_exact(x_int, w_s2d_i8, pre_s2d: bool = False):
     (ph=0, k2=0) weight slots are exact zeros).
 
     Why: the narrow stride-2 layers contract over only C_in*9 taps
-    (27 for the stem) — 2-10% MXU utilization on v5e (r3 profiler
-    trace); s2d deepens the contraction 4x/1.8x and quadruples the
-    channel dim. Matches the reference's stem conv semantics
-    (quantisation/stage_6.py conv loop) with TPU-friendly geometry.
-    The round-2 s2d probe used conv2d_s8_s2d — the s8 conv lowering
-    itself turned out to be the slow path, so that "no win" verdict
-    does not cover this bf16 variant.
+    (27 for the stem); s2d deepens the contraction 4x/1.8x and
+    quadruples the channel dim. Matches the reference's stem conv
+    semantics (quantisation/stage_6.py conv loop).
     """
     xs = x_int.astype(jnp.bfloat16)
     if not pre_s2d:   # pre_s2d: caller already emitted the s2d view
@@ -226,13 +254,15 @@ def conv2d_bf16_s2d_exact(x_int, w_s2d_i8, pre_s2d: bool = False):
     return acc.astype(jnp.int32)
 
 
-def conv2d_int_exact(x_int, w_int, stride: int = 1, padding: int = 0):
-    """Exact integer conv: int[N,C,H,W] x int[O,I,kh,kw] -> int32.
+def conv2d_int_exact(x_int, w_int, stride: int = 1, padding: int = 0,
+                     nhwc: bool = False):
+    """Exact integer conv: int[N,C,H,W] x int[O,I,kh,kw] -> int32 (NHWC
+    x HWIO with nhwc=True).
 
     Preconditions (asserted by the quantization plan, not here):
       |x| < 2^9 (int8 activations, or 9-bit residual-sum concats),
       |w| <= 2^(K-1)-1 <= 127,
-      per-output accumulation bound 127*16*taps < 2^24.
+      per-output partial accumulation sum|w|*|part| < 2^24.
     """
-    acc_hi, acc_lo = conv2d_int_parts(x_int, w_int, stride, padding)
+    acc_hi, acc_lo = conv2d_int_parts(x_int, w_int, stride, padding, nhwc)
     return (acc_hi.astype(jnp.int32) * 16) + acc_lo.astype(jnp.int32)

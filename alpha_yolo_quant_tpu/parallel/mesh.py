@@ -1,9 +1,9 @@
 """Mesh construction and sharded step builders.
 
-Design (TPU-first, scaling-book style): pick a mesh, annotate shardings with
-NamedSharding, let XLA insert the collectives. For this model family the
-batch axis ("dp") rides ICI; params are replicated (3M params — replicating
-is cheaper than any gather). Multi-host runs call
+Design: pick a mesh, annotate shardings with NamedSharding, let XLA insert
+the collectives. For this model family the batch axis ("dp") shards over
+the devices; params are replicated (3M params — replicating is cheaper than
+any gather). Multi-host runs call
 ``jax.distributed.initialize`` before building the mesh.
 """
 
@@ -21,7 +21,8 @@ def initialize_multihost(coordinator: Optional[str] = None,
                          process_id: Optional[int] = None) -> None:
     """Multi-host (DCN) initialization: call once per host before building
     the mesh. With no arguments, jax.distributed auto-detects the cluster
-    environment (TPU pod metadata / SLURM / etc.)."""
+    environment where it can (e.g. SLURM); elsewhere pass the coordinator
+    address, process count and process id."""
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=num_processes,
                                process_id=process_id)
@@ -82,10 +83,7 @@ def data_parallel_step(fn, mesh: Mesh, axis: str = "dp"):
     batch-sharded. This sidesteps global-sharding propagation through
     control flow (NMS while_loops) and is the serving-path pattern.
 
-    fn sees the PER-DEVICE batch (global/n_devices). If that lands in
-    the mid-batch fusion-pathology zone (yolov8n, B in [33..95] on v5e
-    — see scripts/README.md round 5; yolov8s has no such zone), build
-    fn with build_int_pipeline(pad_batch_to=128)."""
+    fn sees the PER-DEVICE batch (global/n_devices)."""
     from jax import shard_map
     from jax.sharding import PartitionSpec
 
@@ -95,13 +93,12 @@ def data_parallel_step(fn, mesh: Mesh, axis: str = "dp"):
 
 def spatial_parallel_fn(fn, mesh: Mesh, axis: str = "sp"):
     """Latency-mode sharding: partition the image HEIGHT across the mesh
-    and let GSPMD insert the conv halo exchanges over ICI.
+    and let GSPMD insert the conv halo exchanges.
 
     The complement of ``data_parallel_step``: dp scales throughput with
     batch, sp divides the single-image wall clock when the batch is too
-    small to fill the mesh (the serve-latency regime, B<=8 — the conv
-    engines ride batch in the 128 vector lanes, so a lone image leaves
-    most of the chip idle; scripts/README.md round-5 batch sweep).
+    small to fill the mesh (the serve-latency regime, where a lone image
+    leaves most of the device idle).
     Numerics are unchanged: height partitioning splits no reduction —
     each device computes its output rows from its rows plus a halo of
     the neighbor's, so results are bitwise identical to the jitted
@@ -112,7 +109,7 @@ def spatial_parallel_fn(fn, mesh: Mesh, axis: str = "sp"):
     deepest feature-map height, i.e. ``image_size/32`` (640 -> sp in
     {2, 4}; 20 rows). Uneven shards make XLA's SPMD partitioner emit a
     type-mismatched halo-padding constant for non-f32 convs and crash
-    in the HLO verifier (probed: scripts/_sp_probe.py).
+    in the HLO verifier.
 
     Build ``fn`` with ``with_nms=False`` (head edges / preds): the NMS
     scan is sequential bookkeeping over (B, anchors) rows and belongs on
@@ -142,9 +139,9 @@ def dp_sp_parallel_fn(fn, mesh: Mesh, dp_axis: str = "dp",
     partitioner the whole 2-D mesh through plain jit shardings instead
     lets it spend the idle dp axis on its own strategies — on this
     toolchain it splits conv contractions across dp, whose partial-sum
-    rounding breaks the exact-int engines (measured 0.5% divergence on
-    the full-quant preds, scripts/_dpsp_probe2.py: sp-only on a 2-D mesh
-    diverges while the identical sp sharding on a 1-D mesh is bitwise).
+    rounding breaks the exact-int engines (sp-only on a 2-D mesh
+    diverged on the full-quant preds while the identical sp sharding on
+    a 1-D mesh is bitwise).
     With dp manual, each dp group reproduces the proven-bitwise pure-sp
     regime, so results equal the jitted unsharded run bit-for-bit
     (tested: tests/test_parallel.py::test_dp_sp_combined_mesh_matches_local).
@@ -177,7 +174,7 @@ def sharded_forward_fn(graph, mesh: Mesh, decode: bool = True,
 
     Inputs are batch-sharded, params replicated; with collect_taps the
     per-image tap maxima are reduced to global per-layer maxima (XLA inserts
-    the cross-device all-reduce max over ICI).
+    the cross-device all-reduce max).
     """
     from alpha_yolo_quant_tpu.models.forward import forward_float
     from alpha_yolo_quant_tpu.models.head import decode_float

@@ -4,8 +4,8 @@ The reference has no distributed code at all (SURVEY.md §2.9); the dp /
 tp / sp seams live in parallel/mesh.py. This module adds the remaining
 classic axis: PIPELINE parallelism — the ordered graph IR is split into
 S contiguous, conv-MAC-balanced stages, each device along the 'pp' mesh
-axis executes one stage, and microbatches flow device-to-device over
-ICI via ``jax.lax.ppermute`` in the standard GPipe fill/steady/drain
+axis executes one stage, and microbatches flow device-to-device
+via ``jax.lax.ppermute`` in the standard GPipe fill/steady/drain
 schedule (T = M + S - 1 ticks for M microbatches; ``lax.switch`` on the
 axis index picks the device's stage inside one SPMD program).
 

@@ -5,7 +5,7 @@ Functional equivalent of the reference's `coord`/`nms` and
 with two deliberate upgrades:
   * batched: the reference `return`s inside its batch loop and therefore only
     ever works for batch 1 (utils/bbox_cls_functions.py:192); here the whole
-    pipeline is vmapped with fixed-size padding, so batch-64 TPU serving works.
+    pipeline is vmapped with fixed-size padding, so batched serving works.
   * O(max_det x N) vectorized greedy selection instead of a python while
     loop — identical keep-set to sequential greedy NMS.
 
@@ -125,8 +125,7 @@ def _select_topk_merge(key, vals, m_keep):
     segment sorts + bitonic top-k merges.
 
     One full-width lax.sort runs ~log^2(N_pad) compare stages at full
-    width (2.35 ms at (128,8400) x 6 operands, latency-bound at 2% BW on
-    the r3 profiler trace). Here: pad to S segments of m_keep, co-sort
+    width. Here: pad to S segments of m_keep, co-sort
     each segment (full width but only log^2(m_keep) stages), then
     log2(S) bitonic merge levels, each keeping the top m_keep of a pair
     (a bitonic merge of two sorted runs fully sorts them, so the final
@@ -250,6 +249,7 @@ def _jacobi_keep(v_b, t_b, blk: int):
         k, _, it = c
         prev = k
         for _ in range(4):
+            # 0/1 operands: exact in bf16 (and in TF32), only > 0 is read
             killed = (k.astype(jnp.bfloat16) @ t_b) > 0.5
             k, prev = v_b & ~killed, k
         return k, prev, it + 1
@@ -271,22 +271,17 @@ def _greedy_nms_mask(boxes, scores, valid, iou_thres, max_det, plus_one,
 
     Implementation: blocked greedy. Candidates are processed in score
     order in 128-wide blocks: each block is first pruned by everything
-    already kept (one matvec on the MXU), then its internal suppression
+    already kept (one matvec), then its internal suppression
     DAG is resolved by Jacobi iteration — bounded by the block size
     instead of the GLOBAL chain depth (dense candidate sets have ~N-deep
-    chains; measured 85ms unblocked -> bounded). The suppress matrix is
+    chains). The suppress matrix is
     built one (N, 128) slice at a time inside the loop — the full (N, N)
     matrix is never materialized.
 
     The outer block loop is a STATIC lax.scan over all blocks, not a
-    while with a data-dependent trip count: the while variant costs
-    ~8ms/batch-128 more even when it runs every block (XLA cannot
-    schedule across a dynamic-trip while; measured 19.0 -> 10.9 ms,
-    scripts/nms4.log), and mostly-empty trailing blocks converge in one
-    Jacobi step. (A compact scatter-maintained kept-box buffer and
-    direct row emission were tried and REVERTED: the per-block scatters
-    cost more than the (N, blk) suppress slice + final argsort they
-    replaced — 16.0 vs 10.9 ms on the worst-case probe.)"""
+    while with a data-dependent trip count (XLA cannot schedule across
+    a dynamic-trip while), and mostly-empty trailing blocks converge in
+    one Jacobi step."""
     n = boxes.shape[0]
     if not presorted:
         perm = jnp.argsort(-jnp.where(valid, scores, -jnp.inf), stable=True)
@@ -324,6 +319,7 @@ def _greedy_nms_mask(boxes, scores, valid, iou_thres, max_det, plus_one,
             xyxya_b = tuple(v[start:end] for v in xyxya)
             s_col = _suppress_slice(xyxya_cut, xyxya_b, iou_thres,
                                     plus_one, quantized)    # (end, blk)
+            # 0/1 operands: exact in bf16 (and in TF32), only > 0 is read
             pre_kill = (kept[:end].astype(jnp.bfloat16) @ s_col) > 0.5
             v_b = validp[start:end] & ~pre_kill
             t_b = s_col[start:end] * tri
@@ -348,6 +344,7 @@ def _greedy_nms_mask(boxes, scores, valid, iou_thres, max_det, plus_one,
                                 quantized)                   # (n_pad, blk)
         # prune by everything already kept: kept rows all rank before
         # this block, so no explicit rank test is needed
+        # 0/1 operands: exact in bf16 (and in TF32), only > 0 is read
         pre_kill = (kept.astype(jnp.bfloat16) @ s_col) > 0.5
         v_b = v_row & ~pre_kill
         # block-internal DAG: this block vs itself
@@ -406,11 +403,8 @@ def _select_candidates(pred, max_nms, conf_thres, pre_topk=None,
         # single-key sort + top-k gathers: sort ONLY the packed int key
         # (same order as the co-sort below) and gather the box columns /
         # class ids at the kept m indices. The 6-operand co-sort moves
-        # every operand through all ~log^2(n) merge passes (2.37 ms at
-        # (128,8400) on the r3 profiler trace); the key-only sort is
-        # 0.64 ms and (128,m)-sized gathers are ~free (r3_sparse2.log
-        # C2/C3). The round-2 choice of the co-sort was based on
-        # artifact-inflated gather numbers.
+        # every operand through all ~log^2(n) merge passes; the key-only
+        # sort moves one operand and the (B,m)-sized gathers are small.
         key = conf_sort_key(conf, n)
         skey = -jax.lax.sort(-key)[:m]
         conf_s = conf_from_key(skey).astype(conf.dtype)
@@ -423,8 +417,7 @@ def _select_candidates(pred, max_nms, conf_thres, pre_topk=None,
         # whose descending sort gives exactly the stable argsort's
         # descending-score, lowest-index-first order — and CO-SORT the box
         # columns and class ids as extra lax.sort operands, so no gathers
-        # at all. Measured at the (128, 8400) worst case: 0.93 ms vs
-        # 2.16 ms argsort+gather (r3_nms3.log G2 vs r3_nms.log S1).
+        # at all.
         key = conf_sort_key(conf, n)
         srt = jax.lax.sort(
             (-key, box[:, 0], box[:, 1], box[:, 2], box[:, 3], cls),
@@ -492,8 +485,7 @@ def non_max_suppression(preds, params: NmsParams = NmsParams(),
         # compact kept rows to the front, at most max_det of them:
         # kept-first co-sort — one int key (keep << bits | reverse-rank)
         # carries the 6 row columns as extra lax.sort operands, replacing
-        # the argsort + 3 gathers (0.37 vs 2.58 ms at the B=128 worst
-        # case, r3_nms4.log A1)
+        # the argsort + 3 gathers
         m = boxes.shape[0]
         sh = int(m).bit_length()
         key = (keep.astype(jnp.int32) << sh) \

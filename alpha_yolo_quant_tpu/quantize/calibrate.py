@@ -61,6 +61,19 @@ def collect_samples(graph: Graph, params: Dict, batches: Iterable[np.ndarray],
     """Full pre-activation tensors for the given taps — the analog of the
     reference's gzip'd per-layer activation dumps used by the min_mae
     search (utils/save_weights.py:13-21)."""
+    out: Dict[str, List[np.ndarray]] = {t: [] for t in taps}
+    walk = jax.jit(lambda params, x: sample_walk(graph, taps, params, x))
+    for batch in batches:
+        captured = jax.device_get(walk(params, batch))
+        for t in taps:
+            out[t].append(np.asarray(captured[t]))
+    return {t: np.concatenate(v, 0) for t, v in out.items()}
+
+
+def sample_walk(graph: Graph, taps: List[str], params: Dict, x
+                ) -> Dict[str, jax.Array]:
+    """The float forward of collect_samples: returns the full
+    pre-activation tensor of each conv whose tap is in ``taps``."""
     from alpha_yolo_quant_tpu.models.graph import (
         ConcatNode, ConvNode, MaxPoolNode, ResidualAddNode, SplitNode,
         UpsampleNode,
@@ -69,41 +82,31 @@ def collect_samples(graph: Graph, params: Dict, batches: Iterable[np.ndarray],
         conv2d_f32, maxpool2d, silu, upsample_nearest,
     )
 
-    out: Dict[str, List[np.ndarray]] = {t: [] for t in taps}
-
-    @jax.jit
-    def walk(params, x):
-        env = {graph.input_edge: x}
-        captured = {}
-        for node in graph.nodes:
-            if isinstance(node, ConvNode):
-                p = params[node.key]
-                pre = conv2d_f32(env[node.src], p["w"], p["b"], node.stride,
-                                 node.padding)
-                if node.tap in out:
-                    captured[node.tap] = pre
-                env[node.dst] = silu(pre) if node.silu else pre
-            elif isinstance(node, SplitNode):
-                h = env[node.src].shape[1] // 2
-                env[node.dst1] = env[node.src][:, :h]
-                env[node.dst2] = env[node.src][:, h:]
-            elif isinstance(node, ResidualAddNode):
-                env[node.dst] = env[node.src] + env[node.base]
-            elif isinstance(node, ConcatNode):
-                env[node.dst] = jax.numpy.concatenate(
-                    [env[e] for e in node.srcs], 1)
-            elif isinstance(node, MaxPoolNode):
-                env[node.dst] = maxpool2d(env[node.src], node.kernel,
-                                          node.stride, node.padding)
-            elif isinstance(node, UpsampleNode):
-                env[node.dst] = upsample_nearest(env[node.src], node.factor)
-        return captured
-
-    for batch in batches:
-        captured = jax.device_get(walk(params, batch))
-        for t in taps:
-            out[t].append(np.asarray(captured[t]))
-    return {t: np.concatenate(v, 0) for t, v in out.items()}
+    env = {graph.input_edge: x}
+    captured = {}
+    for node in graph.nodes:
+        if isinstance(node, ConvNode):
+            p = params[node.key]
+            pre = conv2d_f32(env[node.src], p["w"], p["b"], node.stride,
+                             node.padding)
+            if node.tap in taps:
+                captured[node.tap] = pre
+            env[node.dst] = silu(pre) if node.silu else pre
+        elif isinstance(node, SplitNode):
+            h = env[node.src].shape[1] // 2
+            env[node.dst1] = env[node.src][:, :h]
+            env[node.dst2] = env[node.src][:, h:]
+        elif isinstance(node, ResidualAddNode):
+            env[node.dst] = env[node.src] + env[node.base]
+        elif isinstance(node, ConcatNode):
+            env[node.dst] = jax.numpy.concatenate(
+                [env[e] for e in node.srcs], 1)
+        elif isinstance(node, MaxPoolNode):
+            env[node.dst] = maxpool2d(env[node.src], node.kernel,
+                                      node.stride, node.padding)
+        elif isinstance(node, UpsampleNode):
+            env[node.dst] = upsample_nearest(env[node.src], node.factor)
+    return captured
 
 
 def save_batches(out_dir: str, samples: Dict[str, np.ndarray]) -> None:

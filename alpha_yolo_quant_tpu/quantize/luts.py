@@ -9,8 +9,8 @@ Two precision quirks are reproduced deliberately:
   * the nonlinearity is evaluated on that float32 value (1/(1+e^-x)), then
     re-quantized with numpy round (half-to-even) in float64.
 
-On device a LUT is just an int32 gather (jnp.take); in Pallas kernels it is
-applied as a one-hot MXU matmul (see runtime/pallas kernels).
+On device a LUT is an int32 gather (jnp.take) or its validated arithmetic
+recomputation (ops/lutfast.py).
 """
 
 from __future__ import annotations

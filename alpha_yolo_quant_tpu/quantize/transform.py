@@ -55,8 +55,7 @@ class ConvPlan:
     # (ops/intmath.requantize_i32_bigshift)
     bigshift_ok: bool = False
     # per-output accumulation < 2^24 -> single-pass bf16 conv is exact
-    # (ops/nn.conv2d_bf16_exact); measured faster than s8 on stride-1 and
-    # 1x1 layers on v5e
+    # (ops/nn.conv2d_bf16_exact); the auto engine prefers it
     bf16_single_ok: bool = False
     # Offset-folded single-pass bf16 conv for WIDE input edges
     # (|v| can exceed 256, where odd bf16 ints round): when the PROVEN
@@ -65,9 +64,8 @@ class ConvPlan:
     # conv(x - c) + (b + c*sum(w)) with c = edge_hi - 256 — every
     # shifted input is an integer in [-256, 256] (bf16-exact) and the
     # bias fold is exact because no padded zeros exist. Bit-identical
-    # accumulator by linearity; 1.83 ms/batch faster than the 3-part
-    # s8 split on the one K=8 wide-edge conv (scripts/r7_wideedge3.log).
-    # None = not eligible.
+    # accumulator by linearity; one conv pass instead of the 2-3 part
+    # s8 split. None = not eligible.
     bf16_offset: Optional[int] = None
     # per-out-channel true accumulator bound max|conv(x,w)+b| (int64)
     acc_bound: Optional[np.ndarray] = None

@@ -1,10 +1,10 @@
 """Pure-jnp integer interpreter for the quantized network.
 
-Bit-exact with the reference pipeline while using only TPU-friendly types:
-int32 tensors, the emulated widening requantizer (ops/intmath.py), and
-exact bf16 nibble-split convolutions on the MXU (ops/nn.py). Jittable end to
-end; the same function runs on the virtual CPU mesh in tests and on real
-chips.
+Bit-exact with the reference pipeline using int32 tensors, the emulated
+widening requantizer (ops/intmath.py), and exact integer convolutions
+(bf16 with exact f32 accumulation, or s8 x s8 -> s32; ops/nn.py). Jittable
+end to end; the same function runs on the virtual CPU mesh in tests and on
+the GPU.
 
 The SiLU multiplier folding: requant2( sigma_q * acc ) is computed as
 requantize_i32(acc, m = sigma_q * r2, s2) — exact because integer
@@ -37,15 +37,15 @@ from alpha_yolo_quant_tpu.ops.nn import (
 from alpha_yolo_quant_tpu.quantize.transform import QuantizedModel
 
 
-def device_plan(model: QuantizedModel, pallas: bool = False) -> Dict:
+def device_plan(model: QuantizedModel) -> Dict:
     """Convert the host plan into a pytree of device arrays (the closure
     constants of the jitted forward). LUTs become validated arithmetic
-    recomputations (ops/lutfast.py) — per-element gathers are too slow on
-    TPU. LUT corrections are validated on the CURRENT default backend:
-    call device_plan with the execution backend as the JAX default (a plan
-    built on CPU is not bit-exact on TPU; use FastLut.for_current_backend
-    to re-validate after a backend switch). With pallas=True, per-channel flat constants and in-kernel sigmoid
-    corrections for the fused kernels are included."""
+    recomputations (ops/lutfast.py) that fuse into the elementwise
+    epilogues instead of per-element gathers. LUT corrections are
+    validated on the CURRENT default backend: call device_plan with the
+    execution backend as the JAX default (a plan built on CPU is not
+    bit-exact on the GPU; use FastLut.for_current_backend to re-validate
+    after a backend switch)."""
     from alpha_yolo_quant_tpu.ops.lutfast import build_fast_lut
 
     plan: Dict = {"convs": {}, "requants": {},
@@ -55,24 +55,12 @@ def device_plan(model: QuantizedModel, pallas: bool = False) -> Dict:
     assert (model.sig_lut.lo <= -model.cfg.qmax
             and model.sig_lut.hi >= model.cfg.qmax), \
         "sigmoid LUT domain must cover the clipped requant range"
-    if pallas:
-        from alpha_yolo_quant_tpu.runtime.pallas_ops import (
-            pallas_sigma_corrections,
-        )
-
-        plan["pallas_sigma_corrections"] = pallas_sigma_corrections(
-            model.sig_lut)
     for name, c in model.convs.items():
         d = {"w": jnp.asarray(c.w_q, jnp.int32),
              "w_hwio": jnp.asarray(c.w_q.transpose(2, 3, 1, 0), jnp.int32),
              "w_i8": jnp.asarray(c.w_q, jnp.int8),
              "w_hwio_i8": jnp.asarray(c.w_q.transpose(2, 3, 1, 0),
                                       jnp.int8),
-             "w_io_i8": jnp.asarray(c.w_q[:, :, 0, 0].T, jnp.int8)
-             if c.node.kernel == 1 else None,
-             "w_tap_i8": jnp.asarray(
-                 c.w_q.transpose(1, 2, 3, 0).reshape(-1, c.w_q.shape[0]),
-                 jnp.int8) if c.node.kernel == 3 else None,
              "b": jnp.asarray(c.b_q, jnp.int32).reshape(1, -1, 1, 1)}
         if (c.node.kernel == 3 and c.node.stride == 2
                 and c.node.padding == 1 and c.w_q.shape[1] <= 16
@@ -88,14 +76,9 @@ def device_plan(model: QuantizedModel, pallas: bool = False) -> Dict:
             d["b_off"] = jnp.asarray(
                 np.int64(c.b_q) + c.bf16_offset * sw,
                 jnp.int32).reshape(1, -1, 1, 1)
-        if pallas:
-            d["b_c"] = jnp.asarray(c.b_q, jnp.int32)
         if c.node.silu:
             for f in ("r1", "s1", "r2", "s2"):
                 d[f] = jnp.asarray(getattr(c, f), jnp.int32)
-                if pallas:
-                    d[f + "_c"] = jnp.asarray(
-                        getattr(c, f).reshape(-1), jnp.int32)
         plan["convs"][name] = d
     for key, r in model.requants.items():
         plan["requants"][key] = (jnp.int32(r.rescale), jnp.int32(r.shift))
@@ -160,14 +143,18 @@ def quantize_input(x, k: int, per_image_amax: bool = False,
     return q
 
 
+ENGINES = ("xla", "s8", "auto", "nhwc", "s8_nhwc")
+
+
+def check_engine(engine: str) -> None:
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; engines: "
+                         f"{', '.join(ENGINES)}")
+
+
 # Auto conv-flavor: also run stride-2 3x3 layers as the exact
-# single-pass bf16 conv where bf16_single_ok. The round-1 heuristic
-# restricted bf16 to stride-1/1x1 based on a micro-benchmark later shown
-# to carry ~3 ms of harness artifact per number; the round-3 profiler
-# trace (r3_trace) shows the s8-path stride-2 convs at 2-3% MXU
-# utilization (the two worst layers in the network), so the restriction
-# is re-probed. Flag so probes can A/B it. Measured (r3_bf16s2.log):
-# forward 28.0 -> 26.7 ms, e2e 41.9 -> 40.3 ms at B=128, bit-exact.
+# single-pass bf16 conv where bf16_single_ok. Flag so probes can A/B it
+# (bit-exact either way).
 AUTO_BF16_S2 = True
 
 # Space-to-depth rewrite of the narrow (C_in <= 16) stride-2 3x3 convs:
@@ -182,16 +169,10 @@ AUTO_S2D = False
 # its accumulator slice (slices fuse into the epilogue pass). Bit-exact:
 # every output channel's dot product is computed identically — merging
 # only adds independent channels. The win is structural: the shared
-# input (the 105 MB c2f15 edge at B=128 for the p3 head pair) is read
-# from HBM once instead of per-conv. In this graph the groups are the
-# three detect-head stem pairs ({level}_up_0 / {level}_down_0). A/B flag.
-#
-# Measured and KEPT OFF (r5_merge/r5_merge2/r5_mergetrace logs): the
-# isolated p3 pair WINS (merged conv + sliced epi 0.428 ms vs 0.470 ms
-# for two separate convs+epi), but in the full graph the merge flips
-# XLA's schedule into a pathological 30 ms fusion (e2e 70.3 vs 31.7 ms).
-# The machinery + bit-exactness test stay so the route can be re-probed
-# on future toolchains.
+# input (the c2f15 edge for the p3 head pair) is read from device memory
+# once instead of per-conv. In this graph the groups are the three
+# detect-head stem pairs ({level}_up_0 / {level}_down_0). A/B flag, off:
+# no measurement on the GPU has shown it winning yet.
 AUTO_MERGE_SIBLINGS = False
 
 
@@ -266,26 +247,20 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q,
     edge and the pre-SiLU requantized accumulators under
     '<conv name>:sigdom'.
 
-    engine:
+    engine (one of ENGINES):
       'xla'     bf16 nibble-split convs, pure-jnp ops, NCHW (debug/export)
-      's8'      native s8xs8->int32 MXU convs — one pass per layer, exact
-                by hardware integer accumulation; 9-bit concat inputs take
-                a clip+remainder second conv
-      'auto'    per-layer flavor: exact single-pass bf16 where the
-                accumulation bound allows (fastest measured), s8 otherwise
-      'nhwc'    pure-jnp ops in the TPU's native NHWC layout
-      's8_nhwc' s8 convs in NHWC
-      'pallas'  fused post-conv Pallas kernels
-      'fused'   Pallas matmul kernels for 1x1 + patches-based 3x3
-      'packed'  auto-flavor base + lane-packed banded Mosaic convs for the
-                narrow (C<=64) stride-1 layers (runtime/packed_conv.py)
+      's8'      exact s8 x s8 -> int32 convs (ops/nn.conv2d_s8_exact);
+                9-bit concat inputs take clip+remainder parts
+      'auto'    per-layer flavor from plan flags: exact single-pass bf16
+                where the accumulation bound allows, s8 otherwise
+      'nhwc'    nibble-split convs with NHWC activations
+      's8_nhwc' s8 convs with NHWC activations
     head_requant: apply the full-quant head's first requant stage to the
     six head accumulators INSIDE the forward (box -> int8 at the fixed
     DFL scale, cls -> int16 at scale(12,16)); decode_full_quant must then
     be called with pre_requantized=True. Bit-exact — the identical
     requantize_i32 constants run one fusion boundary earlier — and the
-    forward->decode seam then moves ~1/3 of the int32 accumulator bytes
-    (r3_seams.log attributed ~3.2 ms to that boundary at B=128).
+    forward->decode seam then moves ~1/3 of the int32 accumulator bytes.
 
     All engines produce bit-identical results (tested).
 
@@ -298,59 +273,37 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q,
     loop runs over the slice, so a chain of segments is bit-identical to
     the whole-graph call by construction; head_requant/outputs collection
     are skipped (the caller owns the seams)."""
+    check_engine(engine)
     if options is None:
         options = EngineOptions()
     segmented = node_range is not None
     if segmented or env_in is not None or out_edges is not None:
         # hard errors, not asserts: under `python -O` a stripped assert
-        # would silently run the whole graph ignoring env_in, or run a
-        # slab/pre-op-planned engine over a node slice with absolute
-        # indices (ADVICE r4)
+        # would silently run the whole graph ignoring env_in
         if not (segmented and env_in is not None and out_edges is not None):
             raise ValueError(
                 "segmented execution needs node_range + env_in + out_edges")
         if engine not in ("xla", "s8", "auto") or keep_env:
             raise ValueError(
-                "segments run the plain NCHW engines (no keep_env/nhwc/"
-                "pallas)")
+                "segments run the plain NCHW engines (no keep_env/nhwc)")
     cfg = model.cfg
     qmax = cfg.qmax
-    nhwc = engine in ("nhwc", "s8_nhwc", "fused") and not keep_env
-    use_pallas = engine == "pallas" and not keep_env
-    use_s8 = engine in ("s8", "s8_nhwc", "fused", "auto", "packed") \
-        and not keep_env
-    auto_flavor = engine in ("auto", "packed") and not keep_env
-    # Inter-layer activations are stored as bf16 in the auto/packed
-    # engines: every stored value is an integer with |v| <= 127 (the
+    nhwc = engine in ("nhwc", "s8_nhwc") and not keep_env
+    use_s8 = engine in ("s8", "s8_nhwc", "auto") and not keep_env
+    auto_flavor = engine == "auto" and not keep_env
+    # Inter-layer activations are stored as bf16 in the auto engine:
+    # every stored value is an integer with |v| <= 127 (the
     # epilogue clips to qmax), exactly representable in bf16 (<= 256),
     # and the dominant consumer — the single-pass bf16 conv — then needs
     # no int8->bf16 convert pass through HBM. Integer consumers cast
     # back (exact). Wide (9-bit) edges stay int32 as before.
     bf16_store = auto_flavor
-    use_packed = engine == "packed" and not keep_env
-    fused1x1 = engine == "fused" and not keep_env
     if use_s8:
         from alpha_yolo_quant_tpu.ops.nn import (
             conv2d_bf16_exact, conv2d_s8_exact,
         )
-    if fused1x1 or use_pallas:
-        from alpha_yolo_quant_tpu.runtime.pallas_ops import (
-            fused_conv1x1, fused_conv3x3,
-        )
-    sig = model.sig_lut
-    sig_scale_f = float((2 ** (sig.bits - 1) - 1) / sig.max_val)
-    sig_qmax_f = float(2 ** (sig.bits - 1) - 1)
     cax = 3 if nhwc else 1
-    if use_pallas:
-        from alpha_yolo_quant_tpu.ops.nn import conv2d_int_parts
-        from alpha_yolo_quant_tpu.runtime.pallas_ops import (
-            fused_postconv_plain, fused_postconv_silu,
-        )
-
-        sig_scale, sig_qmax = sig_scale_f, sig_qmax_f
     if nhwc:
-        from alpha_yolo_quant_tpu.ops.nn import conv2d_int_parts
-
         x_q = x_q.transpose(0, 2, 3, 1)
 
     def cshape(t):
@@ -367,7 +320,7 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q,
             # fastest proven-exact formulation per requant (flags
             # checked against the true accumulator bound at plan
             # time; all four produce identical bits — see
-            # ops/intmath.py, scripts/r4_epi2.log)
+            # ops/intmath.py)
             req1 = (requantize_i32_direct if cp.req1_direct_ok
                     else requantize_i32_bigshift_folded if cp.fold1_ok
                     else requantize_i32_bigshift if cp.bigshift_ok
@@ -398,28 +351,10 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q,
 
     env: Dict[str, jnp.ndarray] = (
         dict(env_in) if segmented else {model.graph.input_edge: x_q})
-    slab_x = None
-    if use_packed:
-        from alpha_yolo_quant_tpu.runtime import slabforward as _sf
-
-        sp = plan.get("slabplan")
-        if sp is None:
-            sp = plan["slabplan"] = _sf.build_slab_plan(model)
-        slab_x = _sf.SlabExec(sp, model, plan, env, qmax=qmax,
-                              sig_scale=sig_scale_f, sig_qmax=sig_qmax_f)
 
     lo, hi = node_range if segmented else (0, len(model.graph.nodes))
     for idx in range(lo, hi):
         node = model.graph.nodes[idx]
-        if slab_x is not None:
-            pre = slab_x.sp.pre_ops.get(idx)
-            if pre:
-                slab_x.run(pre)
-            if idx in slab_x.sp.nodes:
-                ops = slab_x.sp.node_ops.get(idx)
-                if ops:
-                    slab_x.run(ops)
-                continue
         if isinstance(node, ConvNode):
             if node.name in merge_skip:
                 continue
@@ -440,50 +375,9 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q,
                 merge_skip.update(mm.name for mm in group[1:])
                 continue
             c = plan["convs"][node.name]
-            if use_pallas:
-                hi, lo = conv2d_int_parts(env[node.src], c["w"],
-                                          node.stride, node.padding)
-                if node.silu:
-                    env[node.dst] = fused_postconv_silu(
-                        hi, lo, c["b_c"], c["r1_c"], c["s1_c"], c["r2_c"],
-                        c["s2_c"], qmax=qmax, sig_scale=sig_scale,
-                        sig_qmax=sig_qmax,
-                        corrections=plan["pallas_sigma_corrections"],
-                        bigshift=model.convs[node.name].bigshift_ok)
-                else:
-                    env[node.dst] = fused_postconv_plain(hi, lo, c["b_c"])
-                continue
             if use_s8:
                 in_amax = model.edge_amax_int[node.src]
-                wide = in_amax > 127
                 s8_parts = -(-in_amax // 127)   # ceil: 1, 2 or 3
-                if fused1x1 and node.kernel == 3 and not wide:
-                    kw = dict(qmax=qmax, sig_scale=sig_scale_f,
-                              sig_qmax=sig_qmax_f,
-                              corrections=plan["pallas_sigma_corrections"],
-                              bigshift=model.convs[node.name].bigshift_ok
-                              ) if node.silu else {}
-                    env[node.dst] = fused_conv3x3(
-                        env[node.src].astype(jnp.int8), c["w_tap_i8"],
-                        c["b_c"], c.get("r1_c"), c.get("s1_c"),
-                        c.get("r2_c"), c.get("s2_c"),
-                        stride=node.stride, silu=node.silu, **kw)
-                    continue
-                if fused1x1 and node.kernel == 1 and not wide:
-                    if node.silu:
-                        env[node.dst] = fused_conv1x1(
-                            env[node.src].astype(jnp.int8), c["w_io_i8"],
-                            c["b_c"], c["r1_c"], c["s1_c"], c["r2_c"],
-                            c["s2_c"], qmax=qmax, sig_scale=sig_scale_f,
-                            sig_qmax=sig_qmax_f,
-                            corrections=plan["pallas_sigma_corrections"],
-                            bigshift=model.convs[node.name].bigshift_ok,
-                            silu=True)
-                    else:
-                        env[node.dst] = fused_conv1x1(
-                            env[node.src].astype(jnp.int8), c["w_io_i8"],
-                            c["b_c"], silu=False)
-                    continue
                 cp_m = model.convs[node.name]
                 prefer_bf16 = (auto_flavor
                                and (cp_m.bf16_single_ok
@@ -495,7 +389,7 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q,
                     # by the plan's offset into bf16's exact-int window
                     # and add the c*sum(w)-folded bias — identical
                     # accumulator bits by linearity (pad == 0; see
-                    # ConvPlan.bf16_offset; scripts/r7_wideedge3.log)
+                    # ConvPlan.bf16_offset)
                     x_sh = env[node.src].astype(jnp.int32) - cp_m.bf16_offset
                     acc = conv2d_bf16_exact(x_sh, c["w_i8"], node.stride,
                                             node.padding) + c["b_off"]
@@ -523,15 +417,10 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q,
                         c["w_hwio_i8"] if nhwc else c["w_i8"],
                         node.stride, node.padding, parts=s8_parts,
                         nhwc=nhwc) + cshape(c["b"])
-            elif nhwc:
-                hi, lo = conv2d_int_parts(env[node.src], c["w_hwio"],
-                                          node.stride, node.padding,
-                                          nhwc=True)
-                acc = (hi.astype(jnp.int32) * 16) + lo.astype(jnp.int32) \
-                    + cshape(c["b"])
             else:
-                acc = conv2d_int_exact(env[node.src], c["w"], node.stride,
-                                       node.padding) + c["b"]
+                acc = conv2d_int_exact(
+                    env[node.src], c["w_hwio"] if nhwc else c["w"],
+                    node.stride, node.padding, nhwc=nhwc) + cshape(c["b"])
             finish_conv(node, c, acc)
         elif isinstance(node, SplitNode):
             h = env[node.src].shape[cax] // 2
@@ -555,10 +444,8 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q,
                 out = jnp.clip(out, -bound, bound)
             if bf16_store:
                 # wide (9-bit, |v| <= 381) residual sums are stored as
-                # int16 — exact, half the HBM bytes of int32 (their
-                # layout-churn copies at the 40-level neck were ~1.9 ms
-                # on the r3 profiler trace); every consumer widens to
-                # int32 before arithmetic
+                # int16 — exact, half the HBM bytes of int32; every
+                # consumer widens to int32 before arithmetic
                 out = out.astype(jnp.int16)
             env[node.dst] = out
         elif isinstance(node, ConcatNode):
@@ -592,10 +479,6 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q,
 
     if segmented:
         return {e: env[e] for e in out_edges}
-    if slab_x is not None:
-        tail = slab_x.sp.pre_ops.get(len(model.graph.nodes))
-        if tail:
-            slab_x.run(tail)
     if nhwc:
         outs = {role: env[e].transpose(0, 3, 1, 2)
                 for role, e in model.graph.outputs.items()}
@@ -642,10 +525,10 @@ def _dfl_softmax_probs(bins, axis: int, exp_lut):
     """Quantized DFL softmax probabilities over the 16-bin axis
     (SURVEY.md §2.3.7): p = int(y/sum * 127) with the reference's
     float64 truncation semantics, computed as the integer-exact
-    (127*e) // sum. TPU has no integer divide, so the division runs in
-    f32 (possibly off by one at boundaries) and is corrected exactly
-    with integer ops; the f64-truncation == integer-floor equivalence
-    is PROVEN by domain exhaustion
+    (127*e) // sum. The division runs in f32 (possibly off by one at
+    boundaries; a float divide vectorizes where an integer divide does
+    not) and is corrected exactly with integer ops; the f64-truncation ==
+    integer-floor equivalence is PROVEN by domain exhaustion
     (tests/test_golden_decode.py::test_dfl_softmax_f64_truncation_equals_integer_floor).
 
     The single shared implementation serves all three decode paths
@@ -681,7 +564,7 @@ def decode_full_quant(model: QuantizedModel, plan: Dict, outs: Dict,
     the 80 class rows to (conf, argmax) inside decode and returns the
     tuple (boxes_xywh (B,4,N), conf (B,N), cls (B,N)) instead of the
     (B,84,N) plane — NMS needs only the max class, and materializing +
-    re-reading the class plane costs ~0.8ms/batch-128 of HBM."""
+    re-reading the class plane costs device-memory traffic."""
     h = model.head
     hp = plan["head"]
     if pre_requantized and reduce_cls:
@@ -718,8 +601,10 @@ def decode_full_quant(model: QuantizedModel, plan: Dict, outs: Dict,
     p = _dfl_softmax_probs(bins, 1, hp["exp_lut"])
 
     # ---- quantized DFL conv + requant to anchor scale ----
-    # f32 dot is exact here (|p|<=127, |w|<=127, 16 taps -> < 2^21) and
-    # avoids the TPU's emulated integer dot.
+    # f32 dot is exact here (|p|<=127, |w|<=127, 16 taps -> < 2^21), and
+    # stays exact if the GPU runs it in TF32: both operands are integers
+    # of at most 8 bits (TF32 keeps 11), products are exact and the
+    # accumulation is f32.
     acc = jnp.einsum("brcn,r->bcn", p.astype(jnp.float32),
                      hp["dfl_w"].astype(jnp.float32),
                      preferred_element_type=jnp.float32).astype(jnp.int32)
@@ -750,10 +635,9 @@ def _conf_cid_packed(cq):
     the largest key — exactly jnp.argmax's first-index tie rule. The
     decode |score| < 2^15 keeps |key| < 2^22, int32-safe; >> 7 is an
     arithmetic shift (floor), recovering the score exactly for negative
-    values too, and & 127 is mod 128 on two's complement. Separate
-    max + argmax reductions measured 4.8 ms of the serving budget at
-    B=128 (r3_sparse2.log C1 vs r3_split.log A1) — argmax lowers to a
-    slow variadic reduce; this is one plain max over the same bytes.
+    values too, and & 127 is mod 128 on two's complement. argmax lowers
+    to a variadic (value, index) reduce; this is one plain max over the
+    same bytes.
     """
     c = cq.shape[1]
     rev = jnp.arange(c - 1, -1, -1, dtype=jnp.int32)
@@ -771,10 +655,9 @@ def _decode_serving_per_level(model: QuantizedModel, plan: Dict,
     dist2bbox, and the class max/argmax are all per-anchor), but the
     DFL softmax then runs on (B,4,16,h,w) views of the head tensors as
     the forward produced them — the concat-first path's
-    (B,4,16,N)->(B,16,4,N) transpose moves the full 275 MB int32 bin
-    plane through HBM at B=128, and the class plane is reduced before
-    any anchor-major materialization (r3_seams.log attributed ~3.2 ms
-    to this boundary). Returns (dbox (B,4,N), conf (B,N), cid (B,N))
+    (B,4,16,N)->(B,16,4,N) transpose moves the full int32 bin plane
+    through HBM, and the class plane is reduced before any anchor-major
+    materialization. Returns (dbox (B,4,N), conf (B,N), cid (B,N))
     with N in p3,p4,p5 row-major anchor order, matching make_anchors.
     """
     from alpha_yolo_quant_tpu.models.head import STRIDES
@@ -788,6 +671,7 @@ def _decode_serving_per_level(model: QuantizedModel, plan: Dict,
         b, _, hh, ww = bq.shape
         bins = bq.reshape(b, 4, 16, hh, ww)
         p = _dfl_softmax_probs(bins, 2, hp["exp_lut"])
+        # exact in f32 and in TF32 (see decode_full_quant)
         acc = jnp.einsum("bcrhw,r->bchw", p.astype(jnp.float32),
                          hp["dfl_w"].astype(jnp.float32),
                          preferred_element_type=jnp.float32
@@ -870,6 +754,7 @@ def decode_select_sparse(model: QuantizedModel, plan: Dict, outs: Dict,
     bins_g = jnp.take_along_axis(box_flat, idx[:, None, :], axis=2)
     bins = bins_g.astype(jnp.int32).reshape(-1, 4, 16, m)
     p = _dfl_softmax_probs(bins, 2, hp["exp_lut"])
+    # exact in f32 and in TF32 (see decode_full_quant)
     acc = jnp.einsum("bcrn,r->bcn", p.astype(jnp.float32),
                      hp["dfl_w"].astype(jnp.float32),
                      preferred_element_type=jnp.float32).astype(jnp.int32)
@@ -928,21 +813,17 @@ def build_int_pipeline(model: QuantizedModel, dfl_w_float=None,
 
     dfl_w_float: the float DFL weights (required for the partial-quant
     pipeline, whose head stays float — reference stage_6.py:598-634).
-    engine: 'xla' | 'pallas' (fused kernels; bit-identical).
+    engine: one of ENGINES (see int_forward); all are bit-identical.
     sparse_select: use the conf-first sparse decode (decode_select_sparse)
     on the full-quant serving path when eligible — bit-identical to the
-    dense decode+select with ~8x less DFL work, but measured SLOWER e2e
-    at B=128 on v5e (43.5 vs 41.9 ms, r3_confcid.log: the dense DFL
-    fuses into surrounding passes while the sort->gather->DFL chain
-    lengthens the critical path), so the dense path is the default.
+    dense decode+select with ~8x less DFL work. Off by default: the dense
+    DFL fuses into surrounding passes while the sort->gather->DFL chain
+    lengthens the critical path; not yet measured on the GPU.
     pad_batch_to: serving knob — when the traced batch is SMALLER, pad
     it with zero images to this width and slice every output back to
-    the real batch. The conv engines ride the batch dimension in the
-    128 vector lanes, and mid-range batches pick pathological fusions
-    (measured on v5e: B=64 native 38.7 ms vs 31.8 ms padded to 128 —
-    r5_b64.log/r5_bsweep.log; B<=32 runs faster natively, so callers
-    should pad only above that). Bit-exact for the real rows: every
-    per-image computation is batch-independent (tested).
+    the real batch, so one compiled batch width serves smaller batches.
+    Bit-exact for the real rows: every per-image computation is
+    batch-independent (tested).
     options: per-pipeline EngineOptions (engine flavor A/B switches plus
     the stage-8 per_image_amax input-quant quirk); None inherits the
     deprecated module globals.
@@ -951,18 +832,17 @@ def build_int_pipeline(model: QuantizedModel, dfl_w_float=None,
     concatenates at the quantized activation dtype (bf16/int8 — half
     the bytes of f32) before one conv-stack pass; outputs split back
     per request. Bit-exact vs per-request runs (batch independence —
-    tests/test_serving.py); faster than f32-level coalescing
-    (serving.coalesced_fn) because the request seam never materializes
-    a concatenated f32 batch (measured on v5e: scripts/r6_b64co2.log)."""
+    tests/test_serving.py); the request seam never materializes a
+    concatenated f32 batch, unlike serving.coalesced_fn."""
     from alpha_yolo_quant_tpu.models.head import decode_float
     from alpha_yolo_quant_tpu.postprocess.nms import (
         NmsParams, non_max_suppression, q_nms_params,
     )
 
+    check_engine(engine)
     if options is None:
         options = EngineOptions()
-    plan = device_plan(model, pallas=engine in ("pallas", "fused",
-                                                "packed"))
+    plan = device_plan(model)
     k = model.cfg.k
     full = model.cfg.full_quant
     score_map = None
@@ -992,7 +872,7 @@ def build_int_pipeline(model: QuantizedModel, dfl_w_float=None,
             raise ValueError("partial-quant pipeline needs dfl_w_float")
         dfl_w = jnp.asarray(dfl_w_float, jnp.float32)
 
-    q_dt = jnp.bfloat16 if engine in ("auto", "packed") else jnp.int8
+    q_dt = jnp.bfloat16 if engine == "auto" else jnp.int8
 
     # sparse select needs the q_NMS serving regime: integer scores, a
     # pre_topk cut, the deferred sigmoid, and < 2^14 anchors
@@ -1026,7 +906,7 @@ def build_int_pipeline(model: QuantizedModel, dfl_w_float=None,
     def _quantized_run(x_q, b):
         padded = pad_batch_to is not None and b < pad_batch_to
         if padded:
-            # only the conv stack needs the lane-optimal width: quantize
+            # only the conv stack needs the padded width: quantize
             # at the real batch, pad the (bf16/int8 — half the bytes)
             # quantized tensor with zero images, slice the head edges
             # back before decode/NMS. Zero rows cannot affect real rows

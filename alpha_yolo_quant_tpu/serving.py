@@ -1,17 +1,11 @@
-"""Request-coalescing serving layer (the robust B=64 contract).
+"""Request-coalescing serving layer.
 
-The conv engines ride the batch dimension in the TPU's 128 vector
-lanes: B=128 steps are the throughput optimum (~4,025 img/s on v5e-1)
-while mid-range batches (B in [33..95]) pick pathological fusions —
-B=64 native runs 1,655 img/s, and the ``pad_batch_to=128`` fix only
-reaches ~2,005 because half the computed rows are padding. The robust
-fix is physics, not tuning: pad rows cost the same as real rows, so
-running TWO queued 64-image requests through one B=128 step serves the
-same traffic at ~2x the padded rate. Bit-exact by the same argument
-(and test) behind ``pad_batch_to``: every per-image computation in the
-pipeline is batch-independent, so concatenating requests along the
-batch changes no real row (tests/test_serving.py; on-TPU parity:
-scripts/r5_padcheck.log for the padding half of the argument).
+One compiled step runs at a fixed batch width. Pad rows cost the same as
+real rows, so queued requests are concatenated along the batch and run
+through one step instead of padding each alone. Bit-exact by the same
+argument (and test) behind ``pad_batch_to``: every per-image computation
+in the pipeline is batch-independent, so concatenating requests along
+the batch changes no real row (tests/test_serving.py).
 
 Two surfaces:
 
@@ -25,8 +19,8 @@ Two surfaces:
   program regardless of traffic).
 
 Reference comparison: the reference serves fixed single-batch torch
-calls (stage_8_torch.py has no batching layer at all); this module is
-the TPU-native replacement for "run the script again".
+calls (stage_8_torch.py has no batching layer at all); this module
+replaces "run the script again".
 """
 
 from __future__ import annotations
@@ -86,8 +80,8 @@ class BatchCoalescer:
     Flush policy: as soon as queued rows fill ``max_batch`` (taking
     whole requests only — a request never spans two steps), or when the
     oldest queued request has waited ``max_wait_ms``. The knob trades
-    tail latency for lane fill; at the measured 31.7 ms/step even a
-    worst-case lone request pays one step + the wait.
+    tail latency for batch fill; a lone request pays one step + the
+    wait.
     """
 
     def __init__(self, fn, max_batch: int = 128,

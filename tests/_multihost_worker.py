@@ -7,7 +7,7 @@ localhost coordinator — the DCN-analog of SURVEY §2.9's "jax.distributed
 initialization for multi-chip". The worker then runs the real library
 surfaces across the cluster:
 
-  1. the calibration tap all-reduce (cross-process max over ICI/DCN),
+  1. the calibration tap all-reduce (cross-process max),
   2. the DP serving step (quantized pipeline under shard_map),
   3. a detection all-gather (multihost_utils.process_allgather),
 

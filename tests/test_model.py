@@ -167,3 +167,51 @@ def test_calibration_taps_recorded():
     assert all(v.shape == (2,) for v in taps.values())
     np.testing.assert_allclose(np.asarray(taps["start"]),
                                np.abs(x).max(axis=(1, 2, 3)), rtol=1e-6)
+
+
+def _conv_dot_precisions(jaxpr):
+    """Precision params of every conv and dot in a closed jaxpr, sub-jaxprs
+    (jit, custom_jvp, ...) included."""
+    found = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name in ("conv_general_dilated", "dot_general"):
+            found.append((eqn.primitive.name, eqn.params["precision"]))
+        for v in eqn.params.values():
+            for sub in (v if isinstance(v, (tuple, list)) else (v,)):
+                sub = getattr(sub, "jaxpr", sub)      # ClosedJaxpr
+                if hasattr(sub, "eqns"):
+                    found += _conv_dot_precisions(sub)
+    return found
+
+
+@pytest.mark.parametrize("path", ["forward_float", "collect_samples",
+                                  "decode_float"])
+def test_float_path_pins_highest_precision(path):
+    """Every conv and dot of the float path asks for HIGHEST precision, so
+    the GPU cannot run it in TF32 (calibration maxima must keep f32
+    semantics)."""
+    import jax
+    from jax import lax
+
+    from alpha_yolo_quant_tpu.quantize.calibrate import sample_walk
+
+    cfg = QuantConfig(model="yolov8n", k=8, image_size=64)
+    graph = build_yolov8_graph(cfg)
+    params = init_params(graph, seed=0)
+    x = jnp.zeros((1, 3, 64, 64), jnp.float32)
+    if path == "forward_float":
+        fn = lambda p, x: forward_float(graph, p, x, collect_taps=True)
+    elif path == "collect_samples":
+        taps = [c.tap for c in graph.convs() if c.tap]
+        fn = lambda p, x: sample_walk(graph, taps, p, x)
+    else:
+        fn = lambda p, x: decode_float(forward_float(graph, p, x)[0],
+                                       p["dfl"]["w"])
+    found = _conv_dot_precisions(jax.make_jaxpr(fn)(params, x).jaxpr)
+    n_convs = len(graph.convs())
+    assert sum(n == "conv_general_dilated" for n, _ in found) == n_convs
+    if path == "decode_float":
+        assert any(n == "dot_general" for n, _ in found)
+    for name, prec in found:
+        assert prec is not None and all(
+            p == lax.Precision.HIGHEST for p in prec), (name, prec)

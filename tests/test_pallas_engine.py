@@ -1,5 +1,5 @@
-"""Bit-exactness of the fused Pallas engine vs the XLA interpreter
-(interpret mode on the CPU mesh)."""
+"""Bit-exactness of every selectable engine vs the XLA nibble-split
+interpreter, and the engine-name contract."""
 
 import numpy as np
 import pytest
@@ -14,7 +14,7 @@ from alpha_yolo_quant_tpu.models.params import init_params
 from alpha_yolo_quant_tpu.quantize.calibrate import collect_stats, reduce_stats
 from alpha_yolo_quant_tpu.quantize.transform import build_quantized_model
 from alpha_yolo_quant_tpu.runtime.interpreter import (
-    device_plan, int_forward, quantize_input,
+    ENGINES, build_int_pipeline, device_plan, int_forward, quantize_input,
 )
 
 RNG = np.random.default_rng(7)
@@ -31,7 +31,6 @@ def _setup(size=64, full=False):
     return cfg, model
 
 
-ENGINES = ["pallas", "nhwc", "s8", "s8_nhwc", "fused", "auto", "packed"]
 
 
 def _assert_outputs_equal(model, want, got, msg=""):
@@ -41,11 +40,11 @@ def _assert_outputs_equal(model, want, got, msg=""):
             np.asarray(want[role]).astype(np.int64), err_msg=f"{msg}{role}")
 
 
-@pytest.mark.parametrize("engine", ENGINES)
-@pytest.mark.parametrize("k", [8, 4])
+@pytest.mark.parametrize("engine", [e for e in ENGINES if e != "xla"])
+@pytest.mark.parametrize("k", [8, 6, 4])
 def test_engine_bit_exact(engine, k):
     """Every engine is bit-identical to the XLA nibble-split interpreter,
-    across bit widths (K=6 is swept in test_loadq)."""
+    across bit widths."""
     cfg = QuantConfig(model="yolov8n", k=k, image_size=64)
     graph = build_yolov8_graph(cfg)
     params = init_params(graph, seed=2)
@@ -54,11 +53,24 @@ def test_engine_bit_exact(engine, k):
     model = build_quantized_model(graph, params, max_a, cfg)
     x = RNG.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
     xq = quantize_input(jnp.asarray(x), k)
-    needs_pallas = engine in ("pallas", "fused", "packed")
-    want = int_forward(model, device_plan(model), xq, engine="xla")
-    got = int_forward(model, device_plan(model, pallas=needs_pallas), xq,
-                      engine=engine)
+    plan = device_plan(model)
+    want = int_forward(model, plan, xq, engine="xla")
+    got = int_forward(model, plan, xq, engine=engine)
     _assert_outputs_equal(model, want, got, msg=f"{engine} k={k} ")
+
+
+@pytest.mark.parametrize("engine", ["fused", "packed", "int4_gemm"])
+def test_removed_engine_rejected(engine):
+    """Names outside ENGINES — the removed kernel engines among them —
+    raise ValueError, and the message names the engines that remain."""
+    cfg, model = _setup()
+    xq = quantize_input(jnp.zeros((1, 3, 64, 64), jnp.float32), 8)
+    for call in (lambda: int_forward(model, device_plan(model), xq,
+                                     engine=engine),
+                 lambda: build_int_pipeline(model, engine=engine)):
+        with pytest.raises(ValueError) as err:
+            call()
+        assert all(e in str(err.value) for e in ENGINES)
 
 
 def test_engines_exact_with_saturated_concat_edges():
@@ -82,41 +94,6 @@ def test_engines_exact_with_saturated_concat_edges():
                    for e in wide_edges)
     assert observed > 254, "test data must actually exceed the 2-part range"
     want = {r: env[r] for r in model.graph.outputs}
-    for engine in ("s8", "auto", "fused", "s8_nhwc", "packed"):
-        needs_pallas = engine in ("fused", "packed")
-        got = int_forward(model, device_plan(model, pallas=needs_pallas),
-                          xq, engine=engine)
+    for engine in ("s8", "auto", "s8_nhwc"):
+        got = int_forward(model, device_plan(model), xq, engine=engine)
         _assert_outputs_equal(model, want, got, msg=f"{engine} saturated ")
-
-
-def test_hybrid_filtered_slab_plan_bit_exact():
-    """build_slab_plan(allow=) hybrid engines: filtered convs bail to
-    the XLA path with boundary unpacks and the mixed forward stays
-    bit-identical to the XLA interpreter."""
-    from alpha_yolo_quant_tpu.runtime.slabforward import build_slab_plan
-
-    cfg, model = _setup()
-    x = RNG.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
-    xq = quantize_input(jnp.asarray(x), 8)
-    want = int_forward(model, device_plan(model), xq, engine="xla")
-    full = build_slab_plan(model)
-    for name, pred in (("h>=32", lambda n, c, h, w: h >= 32),
-                       ("16..32", lambda n, c, h, w: 16 <= h <= 32)):
-        plan = device_plan(model, pallas=True)
-        sp = build_slab_plan(model, allow=pred)
-        plan["slabplan"] = sp
-        assert 0 < len(sp.nodes) < len(full.nodes), name
-        got = int_forward(model, plan, xq, engine="packed")
-        _assert_outputs_equal(model, want, got, msg=f"hybrid {name} ")
-
-
-def test_pallas_sigma_corrections_small():
-    from alpha_yolo_quant_tpu.quantize.luts import sigmoid_lut
-    from alpha_yolo_quant_tpu.runtime.pallas_ops import (
-        pallas_sigma_corrections,
-    )
-
-    lut = sigmoid_lut(7, 8)
-    corr = pallas_sigma_corrections(lut)
-    # arithmetic recomputation should agree almost everywhere
-    assert len(corr) < 16
